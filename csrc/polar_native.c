@@ -1,8 +1,8 @@
 /* polar_tpu native runtime: code construction + Fast-SSC compilation.
  *
- * C implementation of the host-side (non-TPU) components, mirroring the
+ * C implementation of the host-side (non-device) components, mirroring the
  * roles of the reference's polar_freezer.hh / polar_compiler.hh but
- * redesigned for the TPU framework:
+ * redesigned for this framework:
  *
  *  - Bhattacharyya bit-channel evolution in DUAL log-domain double
  *    precision — log(pe) and log(1-pe) evolved jointly (the reference's
@@ -13,7 +13,7 @@
  *  - Fixed-K selection (argsort with stable index tie-break) and
  *    threshold freezing.
  *  - Frozen-mask -> Fast-SSC byte-program compilation (same opcodes and
- *    classification as /root/reference/polar_compiler.hh:11-49, written
+ *    classification as the reference's polar_compiler.hh:11-49, written
  *    iteratively with an explicit stack so N up to 2^30 cannot overflow
  *    the C call stack).
  *

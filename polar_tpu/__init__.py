@@ -1,10 +1,10 @@
-"""polar_tpu — a TPU-native polar-coding framework.
+"""polar_tpu — a polar-coding framework in JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 ``xdsopl/polar`` (successive-cancellation decoding of polar codes in
 saturating int8 fixed point): code construction, Fast-SSC compilation,
 systematic/non-systematic encoding, batched SC / Fast-SSC decoding, AWGN
-Monte-Carlo BER campaigns, and multi-chip scaling via ``shard_map``.
+Monte-Carlo BER campaigns, and multi-GPU scaling via ``shard_map``.
 
 Quick start::
 
@@ -35,7 +35,6 @@ from .encode import encode, encode_systematic, extract_systematic
 from .ops.transform import polar_transform
 from .ber import CampaignResult, SnrPoint, make_step, run_campaign, run_point
 from .campaign_io import load_result, plot_waterfall, save_result
-from .ops.pallas.decoder_kernel import make_pallas_decoder
 
 __version__ = "0.1.0"
 
@@ -67,7 +66,6 @@ __all__ = [
     "run_campaign",
     "SnrPoint",
     "CampaignResult",
-    "make_pallas_decoder",
     "save_result",
     "load_result",
     "plot_waterfall",

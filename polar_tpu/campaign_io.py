@@ -1,9 +1,9 @@
 """Campaign persistence, resumable accumulators, and waterfall plotting.
 
 The reference's only outputs are a 4-column stdout table and the
-``ber_log.png`` waterfall plot (``/root/reference/testbench.cc:218,221``,
+``ber_log.png`` waterfall plot (``testbench.cc:218,221``,
 ``README.md:22-24``). This module provides the machine-readable +
-restartable equivalents the TPU framework needs for long multi-chip
+restartable equivalents this framework needs for long multi-device
 campaigns:
 
 * JSON round-tripping of :class:`~polar_tpu.ber.CampaignResult`;

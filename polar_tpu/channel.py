@@ -1,7 +1,7 @@
 """On-device AWGN channel, BPSK demodulation, and LLR quantization.
 
-TPU-native restatement of the testbench channel model
-(``/root/reference/testbench.cc:110-165``): unit-power BPSK symbols, AWGN
+Batched restatement of the testbench channel model
+(``testbench.cc:110-165``): unit-power BPSK symbols, AWGN
 with ``sigma = sqrt(1 / (2 * 10^(SNR/10)))``, LLR ``= 2/sigma^2 * y``,
 quantized to saturating int8 (or kept in float). Noise is generated on
 device from a JAX PRNG key, so every SNR point is a pure function of its

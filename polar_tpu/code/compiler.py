@@ -1,11 +1,11 @@
 """Fast-SSC node compiler: frozen-bit pattern → decoder node plan.
 
 The reference compiles the frozen mask into a byte-code program interpreted
-at run time (``/root/reference/polar_compiler.hh:21-58``). On TPU, run-time
-interpretation is the wrong shape: instead, the same classification runs in
-Python at **trace time** and specializes the jitted decoder computation —
-the analog of the reference dispatching ``template<int level>`` kernel
-instantiations, with XLA/Mosaic doing the instantiation.
+at run time (``polar_compiler.hh:21-58``). Here the same classification
+runs in Python at **trace time** and specializes the jitted decoder
+computation — the analog of the reference dispatching
+``template<int level>`` kernel instantiations, with XLA doing the
+instantiation.
 
 This module is the single source of truth for node classification. It
 produces:
@@ -90,7 +90,7 @@ def emit_program(tree: Node, level: int) -> np.ndarray:
 
     Format (``polar_compiler.hh:51-58``): ``[level, opcodes..., 255]``.
     Used for golden tests against the reference compiler and for debugging;
-    the TPU decoder does not interpret it.
+    the XLA decoder does not interpret it.
     """
     out = [level]
 

@@ -1,7 +1,7 @@
 """Polar code construction (bit freezing) via Bhattacharyya evolution.
 
 Reproduces both construction modes of the reference
-(``/root/reference/polar_freezer.hh``):
+(``polar_freezer.hh``):
 
 * threshold mode (``PolarFreezer``, lines 11-32): freeze leaf i iff its
   erasure probability exceeds a threshold; K is an output.
@@ -12,7 +12,7 @@ The probability recursion is the erasure-channel evolution: descending a
 level, the left child sees ``pe*(2-pe)`` and the right child ``pe**2``
 (``polar_freezer.hh:16-18``).
 
-TPU-first/accuracy note: the reference evolves probabilities in linear
+Accuracy note: the reference evolves probabilities in linear
 ``long double`` space, which underflows to 0 around level 14+ for typical
 design points (and saturates to exactly 1 near pe→1 for high-rate
 codes), producing arbitrary tie-breaks in ``std::nth_element``. We

@@ -1,10 +1,10 @@
 """Fast-SSC decoder: trace-time specialized, batched, XLA path.
 
 The reference interprets a byte-code program over shape-specialized
-template kernels (``/root/reference/polar_decoder.hh:131-464``). Here the
-same pruned-tree recursion runs in Python at **trace time** over the
+template kernels (``polar_decoder.hh:131-464``). Here the same pruned-tree
+recursion runs in Python at **trace time** over the
 :class:`~polar_tpu.code.compiler.Node` tree, emitting one fully-unrolled
-XLA computation per (N, frozen-set) — the TPU analog of
+XLA computation per (N, frozen-set) — the analog of
 ``template<int level>`` instantiation. All shapes are static; the frame
 batch is the leading dimension (the analog of the SIMD lane axis, but
 thousands wide instead of 32).
@@ -22,21 +22,18 @@ Node semantics are op-for-op those of ``polar_decoder.hh``:
 * spc             (107-127): Wagner decode — decide, parity, weakest |LLR|
                              flip, message = transform(hard)[1:]
 
-TPU-first addition beyond the reference's structure: **compute modes** —
+Beyond the reference's structure: **compute modes** —
 ``compute="qfloat"`` carries the exact int8 saturation semantics in
 bfloat16 (see :class:`~polar_tpu.ops.arith.QuantFloatArith`): identical
-bits, native-float VPU throughput.
+bits in a float dtype.
 
 (A root-hard shortcut — returning the decoder's internal root hard as the
-re-encoded codeword — was deliberately NOT used for the systematic path:
+re-encoded codeword — is deliberately NOT used for the systematic path:
 it deviates from the reference whenever zero-LLR ties or SPC even-tie
 flips occur, because the testbench's re-encode forces frozen slots to +1
 (``testbench.cc:177-183``) while the internal hard need not satisfy them.
-The systematic output therefore re-encodes the u estimate — either the
-XLA re-encode fused into the same program, or, when subtree kernels are
-active, a per-node codeword-estimate track combined up the tree
-(``want_cw`` below) that is bit-identical to the re-encode by
-construction.)
+The systematic output therefore re-encodes the u estimate, fused into the
+same program.)
 
 Saturation order matches the reference exactly, so int8(-semantics)
 decodes are bit-exact against the reference decoder (oracle parity
@@ -54,53 +51,23 @@ from ..ops.transform import polar_transform
 
 
 class _TreeDecoder:
-    """Trace-time recursion over the pruned tree.
+    """Trace-time recursion over the pruned tree; the code-element axis is
+    the last one (frame-major ``(..., N)``)."""
 
-    ``subtree_kernel_for``: optional callable Node -> decode_fn used to
-    drop into a Pallas VMEM kernel for composite subtrees at or below a
-    chosen level (the hybrid decoder — XLA for the large upper levels,
-    kernel-resident pyramids below).
-
-    ``axis``: the code-element axis — ``-1`` (frame-major ``(B, N)``,
-    the default) or ``0`` (element-major ``(N, B)``, the Pallas kernels'
-    native layout: subtree kernels run with NO transposes and the upper
-    XLA f/g become contiguous row-block ops).
-    """
-
-    def __init__(self, ph, subtree_kernel_for=None, want_cw=False,
-                 axis: int = -1, kernel_emits_u: bool = True):
+    def __init__(self, ph):
         self.ph = ph
-        self.subtree_kernel_for = subtree_kernel_for
-        # kernel_emits_u: whether subtree kernels return a leading u
-        # output (False when the output mode never reads the message —
-        # the kernels then skip the dead u stores entirely)
-        self.kernel_emits_u = kernel_emits_u
         self.mesg: list = []
-        # want_cw: carry the re-encoded codeword-estimate track through
-        # the recursion (cw = transform(scatter(u_segment)), frozen → +1
-        # — exactly ``encode(code, u)`` including zero-LLR tie zeros,
-        # testbench.cc:177-183). Used by the hybrid decoder's fused
-        # systematic/codeword output: subtree kernels emit their cw block
-        # in VMEM and the few upper XLA levels combine them node-wise
-        # (cw = [cw_l * cw_r, cw_r]) instead of re-encoding the full u.
-        self.want_cw = want_cw
-        if axis not in (0, -1):
-            raise ValueError("axis must be 0 or -1")
-        self.axis = axis
 
-    # -- layout helpers: slice/concat along the code-element axis -------
-    def _sl(self, x, a, b):
-        return x[a:b] if self.axis == 0 else x[..., a:b]
-
+    # -- layout helpers: halves/concat along the code-element axis ------
     def _halves(self, x):
-        half = x.shape[self.axis] // 2
-        return self._sl(x, None, half), self._sl(x, half, None)
+        half = x.shape[-1] // 2
+        return x[..., :half], x[..., half:]
 
     def _cat(self, parts):
-        return jnp.concatenate(parts, axis=self.axis)
+        return jnp.concatenate(parts, axis=-1)
 
     def _transform(self, x):
-        return polar_transform(x, axis=self.axis)
+        return polar_transform(x, axis=-1)
 
     # -- f/g over the two halves of a node's soft input -----------------
     def _f(self, inp):
@@ -120,7 +87,7 @@ class _TreeDecoder:
     # -- leaf nodes of the pruned tree ----------------------------------
     def _rep(self, soft):
         x = soft
-        while x.shape[self.axis] > 1:
+        while x.shape[-1] > 1:
             lo, hi = self._halves(x)
             x = self.ph.qadd(lo, hi)
         bit = self.ph.signum(x)
@@ -130,114 +97,43 @@ class _TreeDecoder:
     def _spc_hard(self, soft):
         ph = self.ph
         hard = ph.decide(soft)
-        parity = jnp.prod(hard, axis=self.axis,
-                          keepdims=True).astype(hard.dtype)
+        parity = jnp.prod(hard, axis=-1, keepdims=True).astype(hard.dtype)
         sabs = ph.qabs(soft)
-        weak = jnp.min(sabs, axis=self.axis, keepdims=True)
+        weak = jnp.min(sabs, axis=-1, keepdims=True)
         return ph.flip(hard, parity, weak, sabs)
 
     # -- the recursion ---------------------------------------------------
     def decode(self, node: Node, soft):
-        """Returns ``(hard, cw)`` — this node's hard codeword estimate and
-        (when ``want_cw``) its re-encoded codeword-estimate block, else
-        None. Message blocks are appended in emission order (in-order
-        traversal, the msg-cursor semantics of polar_decoder.hh). cw
-        values live in {-1, 0, +1}; plain multiply is exact there, so the
-        track is bit-identical to ``encode(code, u)``."""
+        """Returns this node's hard codeword estimate. Message blocks are
+        appended in emission order (in-order traversal, the msg-cursor
+        semantics of polar_decoder.hh)."""
         kind = node.kind
         ph = self.ph
-        cw = self.want_cw
-        if self.subtree_kernel_for is not None and kind in (
-            "branch", "rate0_right", "rate1_comb"
-        ):
-            kernel = self.subtree_kernel_for(node)
-            if kernel is not None:
-                return self._kernel_outs(kernel(soft), soft.dtype)
         if kind == "rate0":
-            ones = jnp.ones_like(soft)
-            return ones, (ones if cw else None)
+            return jnp.ones_like(soft)
         if kind == "rate1":
             hard = ph.signum(soft)
-            t = self._transform(hard)
-            self.mesg.append(t)
-            return hard, (self._transform(t) if cw else None)
+            self.mesg.append(self._transform(hard))
+            return hard
         if kind == "rep":
-            hard = self._rep(soft)
-            # u_segment = [+1,...,+1,bit] → cw = broadcast(bit) = hard
-            return hard, (hard if cw else None)
+            return self._rep(soft)
         if kind == "spc":
             hard = self._spc_hard(soft)
-            v = self._transform(hard)
-            self.mesg.append(self._sl(v, 1, None))
-            cw_v = None
-            if cw:
-                # u_segment = [+1 (frozen), v_1..v_{L-1}]
-                cw_v = self._transform(
-                    self._cat([jnp.ones_like(self._sl(v, None, 1)),
-                               self._sl(v, 1, None)]))
-            return hard, cw_v
+            self.mesg.append(self._transform(hard)[..., 1:])
+            return hard
         if kind == "rate0_right":
-            hard_r, cw_r = self.decode(node.right, self._g_rate0(soft))
-            return (self._cat([hard_r, hard_r]),
-                    self._cat([cw_r, cw_r]) if cw else None)
+            hard_r = self.decode(node.right, self._g_rate0(soft))
+            return self._cat([hard_r, hard_r])
         if kind == "rate1_comb":
-            hard_l, cw_l = self._decode_left(node, soft)
+            hard_l = self.decode(node.left, self._f(soft))
             hard_r = ph.signum(self._g(hard_l, soft))
-            t = self._transform(hard_r)
-            self.mesg.append(t)
-            cw_v = None
-            if cw:
-                cw_r = self._transform(t)
-                cw_v = self._cat([cw_l * cw_r, cw_r])
-            return (self._cat([ph.qmul(hard_l, hard_r), hard_r]), cw_v)
+            self.mesg.append(self._transform(hard_r))
+            return self._cat([ph.qmul(hard_l, hard_r), hard_r])
         if kind == "branch":
-            hard_l, cw_l = self._decode_left(node, soft)
-            fused = self._decode_right_fused(node, soft, hard_l, cw_l)
-            if fused is not None:
-                return fused
-            hard_r, cw_r = self.decode(node.right, self._g(hard_l, soft))
-            return (self._cat([ph.qmul(hard_l, hard_r), hard_r]),
-                    self._cat([cw_l * cw_r, cw_r]) if cw else None)
+            hard_l = self.decode(node.left, self._f(soft))
+            hard_r = self.decode(node.right, self._g(hard_l, soft))
+            return self._cat([ph.qmul(hard_l, hard_r), hard_r])
         raise AssertionError(kind)  # pragma: no cover
-
-    _KERNEL_KINDS = ("branch", "rate0_right", "rate1_comb")
-
-    def _kernel_outs(self, outs, dtype):
-        base = 0
-        if self.kernel_emits_u:
-            self.mesg.append(outs[0].astype(dtype))
-            base = 1
-        hard = outs[base].astype(dtype)
-        return hard, (outs[base + 1].astype(dtype)
-                      if self.want_cw else None)
-
-    def _decode_left(self, node: Node, soft):
-        """Decode the left child of a branch/rate1_comb node. When the
-        child is kernel-eligible and boundary fusion is on, the parent's
-        f op runs INSIDE the child's kernel (one fewer XLA pass per
-        left-descend — the boundary-level f's are the hybrid top's
-        hottest rows); otherwise the usual XLA f feeds the recursion."""
-        if self.subtree_kernel_for is not None \
-                and node.left.kind in self._KERNEL_KINDS:
-            kernel = self.subtree_kernel_for(node.left, fuse="f")
-            if kernel is not None:
-                return self._kernel_outs(kernel(soft), soft.dtype)
-        return self.decode(node.left, self._f(soft))
-
-    def _decode_right_fused(self, node: Node, soft, hard_l, cw_l):
-        """Right-child boundary fusion for a branch node: the kernel
-        takes the parent's soft slot + the left hard (and cw) blocks,
-        runs the parent's g AND combine in-kernel, and returns the
-        PARENT's combined outputs — the XLA level keeps only routing.
-        Returns None when the right child isn't fusable."""
-        if self.subtree_kernel_for is None \
-                or node.right.kind not in self._KERNEL_KINDS:
-            return None
-        kernel = self.subtree_kernel_for(node.right, fuse="g")
-        if kernel is None:
-            return None
-        args = (soft, hard_l) + ((cw_l,) if self.want_cw else ())
-        return self._kernel_outs(kernel(*args), soft.dtype)
 
 
 def _resolve_arith(compute, dtype):
@@ -265,13 +161,6 @@ def make_fastssc_decoder(
     output: str = "u",
     compute=None,
     output_dtype=None,
-    kernel_level: int | None = None,
-    kernel_frame_tile: int = 256,
-    kernel_compute_dtype=None,
-    kernel_interpret: bool = False,
-    kernel_style: str = "ssa",
-    kernel_fuse: bool = False,
-    kernel_vmem_limit_mb: int | None = None,
 ):
     """Build a jittable Fast-SSC decoder specialized for ``code``.
 
@@ -287,34 +176,11 @@ def make_fastssc_decoder(
 
     ``compute``: None (infer from input dtype: int8 → saturating int8,
     float → plain min-sum), or one of ``"int8"``, ``"qfloat"`` /
-    ``"qfloat-bf16"``, ``"qfloat-f32"`` (int8 semantics in float — exact,
-    VPU-native), ``"float32"``, ``"bfloat16"``, or an arith object.
+    ``"qfloat-bf16"``, ``"qfloat-f32"`` (int8 semantics in float — exact),
+    ``"float32"``, ``"bfloat16"``, or an arith object.
 
     ``output_dtype``: cast hard outputs (±1/0) to this dtype (defaults to
     the working dtype; int8 recommended with qfloat compute).
-
-    ``kernel_level``: enable the hybrid decoder — composite subtrees at or
-    below this level run as Pallas VMEM megakernels (one kernel per
-    distinct frozen pattern, jitted once and reused across call sites),
-    the levels above stay in XLA. This bounds kernel VMEM to one
-    subtree's live set, so it scales to any N. Requires 2-D
-    ``(batch, N)`` inputs; the batch is padded internally to a multiple
-    of ``kernel_frame_tile`` (any batch size works, matching the plain
-    Pallas decoder's contract). ``kernel_style``: ``"ssa"`` (default,
-    value-passing kernel body — measured faster), ``"scratch"``
-    (explicit VMEM pyramid), or ``"interp"`` (the program-size-diet
-    interpreter body, :mod:`~polar_tpu.ops.pallas.interp_kernel` —
-    compiles in seconds where big unrolled subtree kernels take tens of
-    minutes, enabling kernel levels above 15); bit-identical outputs.
-
-    ``kernel_fuse`` (SSA only): boundary fusion — kernel-eligible LEFT
-    children absorb their parent's f op (input = the parent's soft slot,
-    2x rows, with the cached-abs elision for the fused f), and
-    kernel-eligible RIGHT children of branch nodes absorb the parent's g
-    AND combine (inputs = parent soft + left hard/cw; outputs = the
-    parent's combined 2x-row blocks). At the kernel boundary level the
-    XLA top keeps nothing but routing. Bit-exact; costs extra input/
-    output VMEM blocks per kernel.
 
     The returned function is pure and shape-polymorphic in leading batch
     dimensions; it retraces only per distinct (N, frozen-set) — the
@@ -325,156 +191,28 @@ def make_fastssc_decoder(
         tree = compile_code(code)
     if output not in ("u", "systematic", "codeword", "both"):
         raise ValueError(f"unknown output mode {output!r}")
-    if kernel_style == "interp" and kernel_fuse:
-        raise ValueError("the interp kernel style has no boundary fusion")
     info = code.info_indices
-
-    kernel_for = {"frame": None, "lane": None}
-    # fused codeword track: with subtree kernels active (and the SSA body,
-    # which supports the cw track), non-u outputs skip the whole-vector
-    # XLA re-encode — each kernel emits its cw block in VMEM and the few
-    # upper XLA levels combine them node-wise. Bit-exact either way.
-    use_fused_cw = output != "u" and kernel_level is not None \
-        and kernel_style in ("ssa", "interp")
-    # with the fused cw track, "systematic"/"codeword" outputs never read
-    # the message blocks — the kernels skip the dead u stores
-    kernel_emit_u = not use_fused_cw or output == "both"
-    if kernel_level is not None:
-        import jax.numpy as _jnp
-
-        from ..code.compiler import emit_program
-        from ..ops.pallas.decoder_kernel import make_subtree_decoder
-
-        kdtype = kernel_compute_dtype or _jnp.float32
-
-        def _kernel_for(layout: str):
-            cache: dict = {}
-
-            def subtree_kernel_for(node: Node, fuse: str | None = None):
-                if node.level > kernel_level or node.mesg_bits < 1:
-                    return None
-                if fuse and not (kernel_fuse and kernel_style == "ssa"):
-                    return None
-                key = (emit_program(node, node.level).tobytes(), fuse)
-                if key not in cache:
-                    # jit the subtree decoder so repeated call sites of
-                    # the same frozen pattern reuse ONE traced/lowered
-                    # body (a pjit call in the outer jaxpr) instead of
-                    # re-tracing the kernel at every site — at m=20 the
-                    # upper tree has ~512 sites but only ~a dozen
-                    # distinct patterns
-                    import jax as _jax
-
-                    if kernel_style == "interp":
-                        from ..ops.pallas.interp_kernel import \
-                            make_interp_subtree
-
-                        cache[key] = _jax.jit(make_interp_subtree(
-                            node,
-                            frame_tile=kernel_frame_tile,
-                            compute_dtype=kdtype,
-                            interpret=kernel_interpret,
-                            emit_cw=use_fused_cw,
-                            emit_u=kernel_emit_u,
-                            layout=layout,
-                            vmem_limit_mb=kernel_vmem_limit_mb,
-                        ))
-                    else:
-                        cache[key] = _jax.jit(make_subtree_decoder(
-                            node,
-                            frame_tile=kernel_frame_tile,
-                            compute_dtype=kdtype,
-                            interpret=kernel_interpret,
-                            style=kernel_style,
-                            emit_cw=use_fused_cw,
-                            emit_u=kernel_emit_u,
-                            layout=layout,
-                            fuse=fuse,
-                            vmem_limit_mb=kernel_vmem_limit_mb,
-                        ))
-                return cache[key]
-
-            return subtree_kernel_for
-
-        kernel_for = {"frame": _kernel_for("frame"),
-                      "lane": _kernel_for("lane")}
 
     def decode(llrs):
         from ..encode import encode as reencode
 
-        batch = None
-        if kernel_level is not None:
-            # subtree kernels tile the frame axis; pad the whole batch once
-            # here (the same pad/slice contract as make_pallas_decoder).
-            if llrs.ndim != 2:
-                raise ValueError("hybrid decoder expects (batch, N) LLRs")
-            batch = llrs.shape[0]
-            pad = (-batch) % kernel_frame_tile
-            if pad:
-                llrs = jnp.pad(llrs, ((0, pad), (0, 0)))
         ph, work_dtype = _resolve_arith(compute, llrs.dtype)
         x = llrs if work_dtype is None else llrs.astype(work_dtype)
-        dec = _TreeDecoder(ph, kernel_for["frame"], want_cw=use_fused_cw,
-                           kernel_emits_u=kernel_emit_u)
-        _, cw = dec.decode(tree, x)
-        # without kernel u outputs, dec.mesg only holds the (dead) blocks
-        # of XLA-level leaves — the full u is not assemblable (nor needed)
-        u = jnp.concatenate(dec.mesg, axis=-1) if kernel_emit_u else None
-        out_dtype = output_dtype or (u if u is not None else cw).dtype
+        dec = _TreeDecoder(ph)
+        dec.decode(tree, x)
+        u = jnp.concatenate(dec.mesg, axis=-1)
+        out_dtype = output_dtype or u.dtype
 
         def cast(a):
-            a = a.astype(out_dtype) if a.dtype != out_dtype else a
-            return a if batch is None else a[:batch]
+            return a.astype(out_dtype) if a.dtype != out_dtype else a
 
         if output == "u":
             return cast(u)
-        if cw is None:
-            cw = reencode(code, u)
+        cw = reencode(code, u)
         if output == "systematic":
             return cast(cw[..., info])
         if output == "codeword":
             return cast(cw)
         return cast(u), cast(cw)
 
-    def decode_lane_major(llr_t):
-        """Zero-transpose entry: LLRs ``(N, B)`` element-major → outputs
-        with the code axis leading (``u (K, B)``, ``cw (N, B)``). Subtree
-        kernels run in their native tile layout with NO transposes and
-        the upper XLA f/g touch contiguous row blocks — the large-N
-        analog of the whole-block decoder's ``lane_major`` entry
-        (the reference's interleaved lane-major buffers,
-        ``testbench.cc:72``)."""
-        if llr_t.ndim != 2 or llr_t.shape[0] != code.N:
-            raise ValueError(f"expected (N={code.N}, B) lane-major LLRs")
-        batch = llr_t.shape[1]
-        if kernel_level is not None:
-            pad = (-batch) % kernel_frame_tile
-            if pad:
-                llr_t = jnp.pad(llr_t, ((0, 0), (0, pad)))
-        ph, work_dtype = _resolve_arith(compute, llr_t.dtype)
-        x = llr_t if work_dtype is None else llr_t.astype(work_dtype)
-        dec = _TreeDecoder(ph, kernel_for["lane"], want_cw=use_fused_cw,
-                           axis=0, kernel_emits_u=kernel_emit_u)
-        _, cw = dec.decode(tree, x)
-        u = jnp.concatenate(dec.mesg, axis=0) if kernel_emit_u else None
-        out_dtype = output_dtype or (u if u is not None else cw).dtype
-
-        def cast(a):
-            a = a.astype(out_dtype) if a.dtype != out_dtype else a
-            return a[:, :batch]
-
-        if output == "u":
-            return cast(u)
-        if cw is None:
-            # element-major re-encode: scatter u rows into the +1-filled
-            # u-domain column block, transform down the rows
-            full = jnp.ones((code.N, u.shape[1]), u.dtype)
-            cw = polar_transform(full.at[info, :].set(u), axis=0)
-        if output == "systematic":
-            return cast(cw[info, :])
-        if output == "codeword":
-            return cast(cw)
-        return cast(u), cast(cw)
-
-    decode.lane_major = decode_lane_major
     return decode

@@ -7,7 +7,7 @@ trace time over static shapes, emitting one fixed XLA computation per
 
 This is the semantic anchor the Fast-SSC decoder is validated against
 (the reference has no such decoder — its only SC algorithm is the pruned
-interpreter in ``/root/reference/polar_decoder.hh``; equivalence of the
+interpreter in ``polar_decoder.hh``; equivalence of the
 pruned and unpruned trees is the Fast-SSC correctness argument of Sarkis
 et al. 2013, which our tests verify numerically).
 """

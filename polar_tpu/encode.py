@@ -1,6 +1,6 @@
 """Batched polar encoders (non-systematic and systematic).
 
-TPU-native restatement of ``/root/reference/polar_encoder.hh``:
+Batched restatement of ``polar_encoder.hh``:
 
 * non-systematic (lines 9-28): scatter message symbols into the non-frozen
   leaf slots (+1 into frozen slots) and apply the polar transform;

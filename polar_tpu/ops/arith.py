@@ -1,20 +1,20 @@
-"""Dtype-polymorphic decoder arithmetic (the TPU-native `PolarHelper`).
+"""Dtype-polymorphic decoder arithmetic (the batched `PolarHelper`).
 
 This module defines the small op vocabulary the polar encoder/decoder is
 written in, for three numeric modes:
 
 * :class:`Int8Arith` — saturating int8 fixed point, bit-exact with the
-  reference's SIMD int8 semantics (``/root/reference/polar_helper.hh:
+  reference's SIMD int8 semantics (``polar_helper.hh:
   113-173``, the AVX2 ``vsign``-based path), including the ``-127``
   clamps guarding the asymmetric int8 range.
 * :class:`FloatArith` — plain floating point, matching the generic SIMD
-  float semantics (``/root/reference/polar_helper.hh:63-111``).
+  float semantics (``polar_helper.hh:63-111``).
 * :class:`QuantFloatArith` — **int8 semantics computed in float**: LLRs
   are small integers (|x| <= 128; intermediates pre-clamp <= 256), all
   exactly representable even in bfloat16 (8 significand bits). Saturation
-  becomes a clamp, so the whole decode runs on the VPU's native float
+  becomes a clamp, so the whole decode runs on the native float
   path at full rate while remaining bit-for-bit identical to
-  :class:`Int8Arith`. This is the TPU-native answer to the reference's
+  :class:`Int8Arith`. This is an answer to the reference's
   int8 SIMD: same numerics, hardware-preferred dtype.
 
 All ops are elementwise over arbitrarily-shaped jnp arrays; the frame
@@ -148,7 +148,7 @@ class QuantFloatArith(_ArithBase):
     Inputs/outputs are integer-valued floats in [-128, 127]. Every op
     below produces intermediates bounded by |x| <= 256 pre-clamp, exactly
     representable in bfloat16 (and trivially in float32), so results are
-    bit-identical to :class:`Int8Arith` while running on the VPU's native
+    bit-identical to :class:`Int8Arith` while running on the native
     float datapath.
     """
 

@@ -3,10 +3,10 @@
 The polar transform F^{⊗m} applied over GF(2) is expressed here on BPSK
 hard symbols (bit 0 ↔ +1, bit 1 ↔ -1), where XOR becomes multiplication.
 This reproduces the structure of the reference butterfly
-(``/root/reference/polar_encoder.hh:17-26``): stage h pairs element j with
+(``polar_encoder.hh:17-26``): stage h pairs element j with
 element j+h and replaces the lower element by the product.
 
-TPU-first notes: each stage is one fused elementwise multiply over a
+Notes: each stage is one fused elementwise multiply over a
 ``(..., N/(2h), 2, h)`` view — static shapes, no gathers, XLA fuses the
 log2(N) stages into a handful of vector ops. The leading batch dimensions
 (frames) ride along untouched, so a single call transforms an arbitrarily

@@ -4,7 +4,7 @@ This is the distributed-communication layer the reference lacks
 (SURVEY.md §5 "Distributed communication backend"): the Monte-Carlo step
 body runs per-shard under ``jax.shard_map`` with an independent PRNG key
 per device, and the five diagnostic counters are reduced with ``psum``
-over the frame axis — the only cross-chip traffic, a few dozen bytes per
+over the frame axis — the only cross-device traffic, a few dozen bytes per
 step. Scaling efficiency is therefore ~linear by construction; the
 decode itself never communicates (frames are independent, exactly like
 the reference's SIMD lanes).
@@ -16,7 +16,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..ber import _make_dispatch_body
+from ..ber import make_step_body
 from ..code.construction import PolarCode
 from .mesh import BATCH_AXIS, frame_mesh
 
@@ -29,8 +29,6 @@ def make_sharded_step(
     systematic: bool = True,
     dtype=jnp.int8,
     decoder=None,
-    fused: str | bool = "auto",
-    fused_frame_tile: int | None = None,
 ):
     """Build the multi-chip Monte-Carlo step.
 
@@ -39,16 +37,12 @@ def make_sharded_step(
     sharded over ``axis``) and returns globally-psum-reduced counters
     (replicated scalars). ``per_device_batch`` frames are processed on
     every device, so the global batch is ``n_devices * per_device_batch``.
-
-    ``fused``/``fused_frame_tile`` as in :func:`polar_tpu.ber.make_step`:
-    on TPU meshes each shard's step runs as the fused Pallas kernel for
-    systematic int8 N ≤ 4096 (per-shard kernel launch, psum unchanged).
+    Each shard runs :func:`polar_tpu.ber.make_step_body` with its own key.
     """
     if mesh is None:
         mesh = frame_mesh(axis=axis)
-    body = _make_dispatch_body(code, systematic=systematic, dtype=dtype,
-                               decoder=decoder, compute=None, fused=fused,
-                               fused_frame_tile=fused_frame_tile)
+    body = make_step_body(code, systematic=systematic, dtype=dtype,
+                          decoder=decoder)
 
     def shard_fn(keys, snr_db, per_device_batch: int):
         out = body(keys[0], snr_db, per_device_batch)
@@ -118,9 +112,7 @@ def measure_sharded_decode_fps(code, mesh: Mesh | None = None, *,
     if mesh is None:
         mesh = frame_mesh(axis=axis)
     if decoder is None:
-        # the champion decoder for the current backend (Pallas/hybrid on
-        # TPU meshes, XLA elsewhere) — a plain XLA decoder here would
-        # underreport a real TPU mesh by the full kernel speedup (~18x)
+        # the decoder make_auto_decoder picks for this platform
         decoder, _ = make_auto_decoder(code, output_dtype=dtype)
     llrs = global_llr_batch(code, mesh, axis=axis,
                             per_device_batch=per_device_batch, seed=seed)

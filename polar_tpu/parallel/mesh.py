@@ -1,10 +1,11 @@
 """Device-mesh helpers for multi-chip campaigns.
 
 The reference has no distributed backend at all (single process, SIMD
-lanes only — SURVEY.md §2). The TPU-native scaling axis is frame-level
-data parallelism: frames are embarrassingly parallel, so the batch axis
-shards over every available chip and only the tiny BER counters are
-reduced (one ``psum`` per step over ICI/DCN). Multi-host campaigns use
+lanes only — SURVEY.md §2). The scaling axis is frame-level data
+parallelism: frames are embarrassingly parallel, so the batch axis shards
+over every available GPU and only the tiny BER counters are reduced (one
+``psum`` per step, carried by NCCL). Every GPU reaches every other at the
+same rate, so the mesh is 1-D. Multi-host campaigns use
 ``jax.distributed.initialize`` + the same mesh.
 """
 

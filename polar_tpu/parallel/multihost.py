@@ -1,22 +1,20 @@
 """Multi-host campaign entry: jax.distributed + the sharded Monte-Carlo step.
 
 The reference is strictly single-process (SURVEY.md §2); this is the
-framework's pod-scale campaign runner. Every process calls
-:func:`initialize_multihost` (coordinator address from env or args),
-builds the global frame mesh over all chips in the slice, and runs the
-identical SPMD program — BER counters are ``psum``-reduced over ICI/DCN,
-so every host observes the same totals and the sweep logic stays
-deterministic. Single-process (possibly multi-device) environments work
-unchanged: ``initialize_multihost`` is a no-op when no coordinator is
-configured.
+framework's multi-host campaign runner. Every process calls
+:func:`initialize_multihost` with an explicit coordinator, builds the
+global frame mesh over all GPUs of all processes, and runs the identical
+SPMD program — BER counters are ``psum``-reduced (NCCL), so every host
+observes the same totals and the sweep logic stays deterministic.
+Single-process (possibly multi-GPU) runs work unchanged:
+``initialize_multihost`` is a no-op when no coordinator is given. One
+process drives every GPU it sees; never start two processes on one card.
 
-Launch on a pod slice (one command per host):
+Launch one command per host:
 
     python -m polar_tpu.parallel.multihost --m 15 --rate 0.5 \\
-        --out results/pod_n32768.json
-
-with the standard JAX cluster-env variables set (or
-``--coordinator host:port --process-id i --num-processes n``).
+        --coordinator host0:1234 --num-processes 2 --process-id 0 \\
+        --out results/n32768.json
 """
 
 from __future__ import annotations
@@ -32,17 +30,20 @@ import jax
 def initialize_multihost(coordinator: str | None = None,
                          num_processes: int | None = None,
                          process_id: int | None = None) -> bool:
-    """Initialize jax.distributed if a coordinator is configured.
+    """Initialize jax.distributed when a coordinator is given.
 
-    Returns True when running multi-process. Safe to call in any
-    environment: without a coordinator address (arg or
-    ``JAX_COORDINATOR_ADDRESS`` / cluster autodetection via TPU metadata)
-    it leaves JAX in single-process mode.
+    Returns True when running multi-process. Without a coordinator
+    address (argument or ``JAX_COORDINATOR_ADDRESS``) it leaves JAX in
+    single-process mode. Nothing is autodetected: a multi-process run
+    passes ``coordinator`` (``host:port``), ``num_processes`` and
+    ``process_id`` explicitly.
     """
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
-    in_cluster = coordinator is not None or os.environ.get("MEGASCALE_COORDINATOR_ADDRESS")
-    if not in_cluster:
+    if coordinator is None:
         return False
+    if num_processes is None or process_id is None:
+        raise ValueError("a multi-process run needs num_processes and "
+                         "process_id beside the coordinator address")
     jax.distributed.initialize(
         coordinator_address=coordinator,
         num_processes=num_processes,
@@ -213,7 +214,9 @@ def main() -> int:
     args = ap.parse_args()
 
     import polar_tpu as pt
+    from ..utils.cache import enable_compilation_cache
 
+    enable_compilation_cache()
     multi = initialize_multihost(args.coordinator, args.num_processes,
                                  args.process_id)
     if is_lead_host():

@@ -9,7 +9,7 @@ exchanges elements j ↔ j+h (``polar_encoder.hh:23-26``):
   ordinary vectorized butterfly;
 * stages with ``h >= shard_size`` pair each shard with the shard
   ``h/S`` positions away — one ``ppermute`` per stage pulls the partner
-  shard over ICI, and a role mask (lower half of each 2h-block
+  shard (NVLink between GPUs), and a role mask (lower half of each 2h-block
   multiplies, upper half passes through) applies the update.
 
 This is the ring-attention analog for this workload: log2(D) neighbor

@@ -2,9 +2,9 @@
 
 Closes SURVEY.md §5's stretch goal for the decoder side (VERDICT r1
 next-round #2): the top tree levels' f/g/combine math
-(``/root/reference/polar_decoder.hh:28-59``) runs under ``jax.shard_map``
+(``polar_decoder.hh:28-59``) runs under ``jax.shard_map``
 with the codeword **element axis** sharded over the mesh, exchanging the
-partner half-shards over ICI with one ``ppermute`` per op; below the
+partner half-shards with one ``ppermute`` per op; below the
 per-device shard size the recursion hands off to the existing trace-time
 local tree decoder (:class:`polar_tpu.decode.fastssc._TreeDecoder`).
 
@@ -14,7 +14,7 @@ n_sh)``; its distributed value is carried as a per-device ``(B, S)``
 block that is *valid on the owning range and don't-care elsewhere* —
 every device executes the same program (shard_map traces once), role
 masks select results. Child values follow the soft-pyramid convention of
-the Pallas kernel: they live on the FIRST half of the parent's range.
+the reference decoder: they live on the FIRST half of the parent's range.
 
 At ``n_sh == 1`` the subtree's input sits wholly on one known shard.
 Each such subtree is a **distinct trace-time call site**, so its
@@ -59,51 +59,23 @@ class _ShardedTreeDecoder:
     """
 
     def __init__(self, ph, axis: str, n_dev: int, shard: int,
-                 batch_split: bool = False, comm: str = "ppermute",
-                 comm_interpret: bool = False):
+                 batch_split: bool = False):
         self.ph = ph
         self.axis = axis
         self.n_dev = n_dev
         self.shard = shard  # S: elements per device
         self.batch_split = batch_split
-        self.comm = comm
-        self.comm_interpret = comm_interpret
         self.d = jax.lax.axis_index(axis)
-        self._token = None  # serializes RDMA exchanges (see _ring)
 
     # -- communication helpers -----------------------------------------
-    # RDMA exchanges all share ONE barrier collective_id (rdma.py), so
-    # no two of them may ever be in flight concurrently. Most exchanges
-    # are already ordered by SC data dependencies (and the two formerly-
-    # independent pairs — spc's parity/min pulls, rate0_right's hard/u
-    # pushes — are stacked into single exchanges), but not all: a
-    # rate1/spc/rate1_comb node's u-track transform pulls and the
-    # parent's subsequent hard-track exchange both depend only on the
-    # node's hard estimate, so XLA could issue them concurrently. A
-    # scalar token threaded through optimization_barrier makes every
-    # RDMA call's input depend on the previous call's output — strict
-    # serialization, enforced rather than assumed.
-    def _ring(self, x, offset: int):
-        from .rdma import ring_shift
-
-        if self._token is not None:
-            x, _ = jax.lax.optimization_barrier((x, self._token))
-        y = ring_shift(x, offset, self.axis, interpret=self.comm_interpret)
-        self._token = y.reshape(-1)[0]
-        return y
-
     def _pull_from(self, x, offset: int):
         """Every device receives x from the device ``offset`` positions
         ahead (d + offset, wrapping; wrapped lanes are masked by role)."""
-        if self.comm == "rdma":
-            return self._ring(x, offset)
         perm = [(s, (s - offset) % self.n_dev) for s in range(self.n_dev)]
         return jax.lax.ppermute(x, self.axis, perm)
 
     def _push_right(self, x, offset: int):
         """Every device receives x from ``offset`` positions behind."""
-        if self.comm == "rdma":
-            return self._ring(x, -offset)
         perm = [(s, (s + offset) % self.n_dev) for s in range(self.n_dev)]
         return jax.lax.ppermute(x, self.axis, perm)
 
@@ -119,18 +91,10 @@ class _ShardedTreeDecoder:
         """Decode the left child and push ``(soft, hard_l)`` right by
         ``n2``; returns ``(hard_l, u_l, soft_pushed, hard_pushed)``.
 
-        ppermute: the ``soft`` push has no data dependency on the left
-        decode, so it is issued as its OWN collective *before* the
-        recursion — XLA's async collective scheduler can then overlap
-        the transfer with the left subtree's compute (the BACKLOG
-        double-buffering item). RDMA keeps the single stacked exchange:
-        its transport requires every exchange totally ordered (see
-        ``_ring``), which forbids the overlap anyway. Identical values
-        either way."""
-        if self.comm == "rdma":
-            hard_l, u_l = decode_left()
-            pushed = self._push_right(jnp.stack([soft, hard_l]), n2)
-            return hard_l, u_l, pushed[0], pushed[1]
+        The ``soft`` push has no data dependency on the left decode, so
+        it is issued as its OWN collective *before* the recursion — XLA's
+        async collective scheduler can then overlap the transfer with the
+        left subtree's compute."""
         soft_p = self._push_right(soft, n2)
         hard_l, u_l = decode_left()
         return hard_l, u_l, soft_p, self._push_right(hard_l, n2)
@@ -187,10 +151,8 @@ class _ShardedTreeDecoder:
             weak = jnp.min(sabs, axis=-1, keepdims=True)
             m = n_sh
             while m > 1:
-                # one stacked exchange per stage (not two independent
-                # ones): keeps every collective in the program totally
-                # ordered — required by the RDMA transport, free for
-                # ppermute (ppermute of a stack == stacked ppermutes)
+                # one stacked exchange per stage (ppermute of a stack ==
+                # stacked ppermutes, one collective instead of two)
                 both = self._pull_from(jnp.stack([par, weak]), m // 2)
                 par = ph.qmul(par, both[0])
                 weak = ph.qmin(weak, both[1])
@@ -206,7 +168,7 @@ class _ShardedTreeDecoder:
             # g with implicit all-(+1) left half: saturating add
             child = ph.qadd(soft, self._pull_from(soft, n2))
             hard_r, u_r = self.decode(node.right, child, base, n2)
-            # stacked push (ordering contract — see _pull_from)
+            # stacked push: one collective for both tracks
             pushed = self._push_right(jnp.stack([hard_r, u_r]), n2)
             hard = jnp.where(self._is_in(base, n2), hard_r, pushed[0])
             u = jnp.where(self._is_in(base, n2), ones, pushed[1])
@@ -254,11 +216,11 @@ class _ShardedTreeDecoder:
         if self.batch_split and inp.shape[0] % self.n_dev == 0:
             nb = inp.shape[0] // self.n_dev
             mine = jax.lax.dynamic_slice_in_dim(inp, self.d * nb, nb, axis=0)
-            hard_mine, _ = dec.decode(node, mine)
+            hard_mine = dec.decode(node, mine)
             gathered = jax.lax.all_gather(hard_mine, self.axis)  # (D, nb, S)
             hard = gathered.reshape(inp.shape)
         else:
-            hard, _ = dec.decode(node, inp)
+            hard = dec.decode(node, inp)
         u = jnp.ones_like(hard)
         if dec.mesg:
             mesg = jnp.concatenate(dec.mesg, axis=-1)
@@ -304,7 +266,6 @@ def make_seqpar_decoder(
     compute=None,
     output: str = "u_full",
     batch_split: bool = False,
-    comm: str = "ppermute",
 ):
     """Element-sharded Fast-SSC decoder: LLRs ``(B, N)`` sharded on the
     element axis over ``mesh[axis]`` → u-domain estimate ``(B, N)`` with
@@ -319,12 +280,6 @@ def make_seqpar_decoder(
     shard-size subtree decode (work-efficient; needs B divisible by the
     shard count) instead of decoding subtrees redundantly on every
     device. Identical results either way.
-
-    ``comm``: cross-shard exchange transport — ``"ppermute"`` (XLA
-    collective, default) or ``"rdma"`` (direct Pallas
-    ``make_async_remote_copy`` per device, :mod:`polar_tpu.parallel.rdma`
-    — ICI RDMA on real pods, interpret-emulated on CPU meshes).
-    Identical results.
     """
     if tree is None:
         tree = compile_code(code)
@@ -337,11 +292,6 @@ def make_seqpar_decoder(
         raise ValueError(f"shard size {shard} < 4 (use fewer devices)")
     if output not in ("u_full", "u"):
         raise ValueError(f"unknown output mode {output!r}")
-    if comm not in ("ppermute", "rdma"):
-        raise ValueError(f"unknown comm transport {comm!r}")
-    # the RDMA kernels need the interpreter on non-TPU backends (CPU
-    # test meshes); on TPU they lower to real ICI remote copies
-    comm_interpret = comm == "rdma" and jax.default_backend() != "tpu"
     info = code.info_indices
 
     def decode(llrs):
@@ -350,8 +300,7 @@ def make_seqpar_decoder(
 
         def body(x_loc):
             dec = _ShardedTreeDecoder(ph, axis, n_dev, shard,
-                                      batch_split=batch_split, comm=comm,
-                                      comm_interpret=comm_interpret)
+                                      batch_split=batch_split)
             _, u = dec.decode(tree, x_loc, 0, n_dev)
             return u
 

@@ -1,20 +1,19 @@
-"""Honest on-device throughput measurement.
+"""On-device throughput measurement.
 
-Measuring decode throughput with ``block_until_ready`` around repeated
-calls is unreliable on remote-executed backends (dispatch acks can race
-ahead of real completion, and identical execute requests may be deduped).
-The method here is robust to both:
+JAX dispatches asynchronously, so a timing must end in a host pull. The
+meters here chain the work inside one jitted program and take a slope:
 
 * ``iters`` decodes are chained **inside one jitted program** via
   ``lax.fori_loop``, each iteration's input perturbed by the previous
-  iteration's output (a true data dependency — nothing can be elided,
-  hoisted, or cached);
+  iteration's output (a true data dependency — nothing can be elided or
+  hoisted); the iteration count is a traced argument, so one compile
+  serves every count the meter tries;
 * completion is forced by pulling a scalar checksum to the host;
 * the reported time is the **slope** between a 1-iteration and an
   n-iteration run, cancelling dispatch/transfer constants.
 
-This is the TPU analog of the reference's timed decode region
-(``/root/reference/testbench.cc:170-174``), hardened for remote backends.
+This is the analog of the reference's timed decode region
+(``testbench.cc:170-174``).
 """
 
 from __future__ import annotations
@@ -25,8 +24,10 @@ import jax
 import jax.numpy as jnp
 
 
-def _chained_runner(decode_fn, n_out_pad):
-    """Build runner(x, iters): fori_loop of decode with data dependency."""
+def chained_decode_runner(decode_fn, n_out_pad):
+    """Build the jitted ``runner(x, iters)`` of :func:`measure_decode_fps`:
+    a ``fori_loop`` of ``iters`` (traced) data-dependent decodes → an int32
+    checksum."""
 
     def runner(x, iters):
         def body(_, carry):
@@ -40,7 +41,7 @@ def _chained_runner(decode_fn, n_out_pad):
         y = jax.lax.fori_loop(0, iters, body, x)
         return jnp.sum(y.astype(jnp.int32))
 
-    return jax.jit(runner, static_argnums=(1,))
+    return jax.jit(runner)
 
 
 def measure_decode_fps(decode_fn, llrs, *, iters: int = 16, warmup: bool = True,
@@ -73,7 +74,7 @@ def measure_decode_fps(decode_fn, llrs, *, iters: int = 16, warmup: bool = True,
     """
     b, n = llrs.shape
     k = jax.eval_shape(decode_fn, llrs).shape[-1]  # no eager dispatch
-    runner = _chained_runner(decode_fn, n - k)
+    runner = chained_decode_runner(decode_fn, n - k)
 
     def timed(it):
         t0 = time.perf_counter()
@@ -158,7 +159,7 @@ def measure_step_rate(step_body, key, snr_db, batch: int, *, iters: int = 16,
         _, acc = jax.lax.fori_loop(0, it, body, (k0, jnp.int32(0)))
         return acc
 
-    runner = jax.jit(runner, static_argnums=(1,))
+    runner = jax.jit(runner)
 
     def timed(it):
         t0 = time.perf_counter()

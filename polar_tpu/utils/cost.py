@@ -1,9 +1,7 @@
 """Static cost model for a code's Fast-SSC decode.
 
-Computes, per frame, the element-operation profile of the pruned tree
-(which node kinds dominate), the VMEM footprint of the megakernel at a
-given frame tile, and a recommended tile/strategy — the quantitative
-basis for :mod:`polar_tpu.decode.auto`'s defaults.
+Computes, per frame, the element-operation profile of the pruned tree:
+how many nodes it has and which node kinds dominate.
 """
 
 from __future__ import annotations
@@ -13,26 +11,21 @@ from dataclasses import dataclass
 from ..code.compiler import Node, compile_code
 from ..code.construction import PolarCode
 
-# approximate VPU element-op multipliers per kind (sign-free kernel).
-# "f_cached" is an f whose input slot was produced by a parent f: the
-# kernel hands the parent's min magnitudes down, so both abs ops vanish
-# (decoder_kernel.py `cabs`); same for spc_cached (skips abs + guard).
+# approximate element-op multipliers per kind. "f_cached" is an f whose
+# input slot was produced by a parent f: a decoder that hands the
+# parent's min magnitudes down skips both abs ops; same for spc_cached
+# (skips abs + guard).
 _MULT = {
     "f": 7, "f_cached": 5, "g": 4, "comb": 1, "qadd": 3, "copy": 1,
     "sign": 2, "rate0": 1, "rate1": 2, "rep": 3, "spc": 8,
     "spc_cached": 6, "transform": 2,
 }
 
-VMEM_BYTES = 16 * 1024 * 1024
-# reserve for in/out blocks, double buffering, compiler scratch
-VMEM_HEADROOM = 4 * 1024 * 1024
-
-
 @dataclass
 class DecodeCost:
     n: int
     node_count: int
-    elem_ops_per_frame: int   # weighted VPU element-ops
+    elem_ops_per_frame: int   # weighted element-ops
     by_kind: dict             # kind -> (elem_ops, sites)
 
     def summary(self) -> str:
@@ -94,24 +87,3 @@ def decode_cost(code: PolarCode, tree: Node | None = None) -> DecodeCost:
     total = sum(ops for ops, _ in by_kind.values())
     return DecodeCost(n=code.N, node_count=nodes,
                       elem_ops_per_frame=total, by_kind=by_kind)
-
-
-def kernel_vmem_bytes(n: int, frame_tile: int, compute_bytes: int = 4,
-                      k: int | None = None) -> int:
-    """Megakernel VMEM footprint: soft pyramid + hard stack (compute
-    dtype) + int8 input/output blocks (double-buffered)."""
-    if k is None:
-        k = n // 2
-    scratch = (2 * n + n) * frame_tile * compute_bytes
-    blocks = 2 * (n + k) * frame_tile  # int8, x2 double buffering
-    return scratch + blocks
-
-
-def max_frame_tile(n: int, compute_bytes: int = 4) -> int:
-    """Largest multiple-of-128 frame tile whose megakernel fits VMEM,
-    or 0 when even tile 128 doesn't fit (use the hybrid decoder)."""
-    budget = VMEM_BYTES - VMEM_HEADROOM
-    tile = 0
-    while kernel_vmem_bytes(n, tile + 128, compute_bytes) <= budget:
-        tile += 128
-    return tile

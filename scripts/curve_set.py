@@ -2,12 +2,12 @@
 """Reproduce the reference's published ber_log.png curve set.
 
 "Comparing various systematic and non-systematic rate-1/2 code lengths"
-(`/root/reference/README.md:22-24`): one BER waterfall per (N, mode)
+(`README.md:22-24`): one BER waterfall per (N, mode)
 pair. Each campaign checkpoints to results/, so the sweep is resumable;
 the combined plot is rewritten after every completed campaign.
 
   python scripts/curve_set.py                       # default M set
-  python scripts/curve_set.py --ms 6 10 14 --plot results/ber_log_tpu.png
+  python scripts/curve_set.py --ms 6 10 14 --plot results/ber_log.png
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ def main() -> int:
     ap.add_argument("--target-errors", type=int, default=1000)
     ap.add_argument("--snr-step", type=float, default=0.2)
     ap.add_argument("--outdir", type=str, default="results")
-    ap.add_argument("--plot", type=str, default="results/ber_log_tpu.png")
+    ap.add_argument("--plot", type=str, default="results/ber_log.png")
     ap.add_argument("--steps-per-call", type=int, default=1)
     ap.add_argument("--tag-suffix", type=str, default="",
                     help="append to checkpoint names (fresh files for a "
@@ -73,7 +73,7 @@ def main() -> int:
             results.append(res)
             plot_waterfall(
                 results, args.plot,
-                title="polar-tpu BER waterfalls, rate-1/2 (TPU v5e)",
+                title="polar-tpu BER waterfalls, rate-1/2",
             )
     print(f"curve set complete: {len(results)} campaigns, plot at {args.plot}",
           file=sys.stderr)

@@ -3,7 +3,7 @@
 Run where ``/root/reference`` is mounted (it drives the reference oracle);
 the frozen vectors then let the parity suite (tests/test_golden_vectors.py)
 run green in environments WITHOUT the reference — the portable analog of
-the testbench's self-checking role (``/root/reference/testbench.cc:143-146``).
+the testbench's self-checking role (``testbench.cc:143-146``).
 
 Contents per (m, rate) config:
   mask_<m>_<rk>            frozen mask from the testbench construction recipe

@@ -4,7 +4,7 @@
 // UNMODIFIED reference headers (mounted read-only at /root/reference,
 // included via -I by the build in tests/conftest.py) and exposes their
 // behavior over a tiny stdin/stdout binary protocol, so the Python test
-// suite can check the TPU framework bit-exactly against the reference:
+// suite can check the framework bit-exactly against the reference:
 // frozen-mask construction, Fast-SSC program compilation, systematic and
 // non-systematic encoding, and int8 SIMD Fast-SSC decoding.
 //

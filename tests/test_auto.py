@@ -1,8 +1,9 @@
-"""Auto-decoder selection tests (CPU backend → XLA path; TPU descriptors)."""
+"""Auto-decoder selection tests (CPU backend → XLA path)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 import polar_tpu as pt
 from polar_tpu.decode.auto import make_auto_decoder
@@ -18,38 +19,26 @@ def test_cpu_backend_selects_xla():
     assert out.shape == (16, code.K) and out.dtype == jnp.int8
 
 
-def test_tpu_selection_descriptors():
-    assert make_auto_decoder(pt.make_code(8, rate=0.5), backend="tpu")[1] == \
-        "pallas-ssa-f32-t512"
-    assert make_auto_decoder(pt.make_code(12, rate=0.5), backend="tpu")[1] == \
-        "pallas-ssa-f32-t256"
-    assert make_auto_decoder(pt.make_code(13, rate=0.5), backend="tpu")[1] == \
-        "pallas-ssa-f32-t128"
-    # r3: raised VMEM budgets make whole-code kernels the u-output
-    # champions to m=16 (receipts m14/m15/m16-wholecode-ssa-*)
-    assert make_auto_decoder(pt.make_code(14, rate=0.5), backend="tpu")[1] == \
-        "pallas-ssa-f32-t128-v32"
-    assert make_auto_decoder(pt.make_code(16, rate=0.5), backend="tpu")[1] == \
-        "pallas-ssa-f32-t128-v110"
-    assert make_auto_decoder(pt.make_code(17, rate=0.5), backend="tpu")[1] == \
-        "hybrid-kl15-t128-v64"
-    assert make_auto_decoder(
-        pt.make_code(8, rate=0.5), backend="tpu",
-        output="systematic")[1] == "pallas-ssa-f32-t512-fusedcw"
-    # non-u outputs: cw-track whole-code kernels receipted to m15
-    # (larger budgets than the u track); kl15 cw hybrids above
-    # (receipt m16-hybridcw-kl15-t128-v110: +24.6% over kl13)
-    assert make_auto_decoder(
-        pt.make_code(14, rate=0.5), backend="tpu",
-        output="systematic")[1] == "pallas-ssa-f32-t128-fusedcw-v64"
-    assert make_auto_decoder(
-        pt.make_code(16, rate=0.5), backend="tpu",
-        output="systematic")[1] == "hybrid-kl15-t128-v110"
+@pytest.mark.parametrize("backend", ["gpu", "cpu"])
+@pytest.mark.parametrize("output", ["u", "systematic"])
+def test_supported_platforms_select_xla(backend, output):
+    """Both platforms get the XLA decoder (building it needs no device)."""
+    code = pt.make_code(6, rate=0.5)
+    dec, desc = make_auto_decoder(code, output=output, backend=backend)
+    assert desc == "xla"
+    llr = jnp.zeros((4, code.N), jnp.int8)
+    assert jax.eval_shape(dec, llr).shape == (4, code.K)
+
+
+@pytest.mark.parametrize("backend", ["rocm", "neuron", "METAL", ""])
+def test_unknown_platform_raises(backend):
+    with pytest.raises(ValueError):
+        make_auto_decoder(pt.make_code(6, rate=0.5), backend=backend)
 
 
 def test_systematic_wrapper_matches_reference_path():
-    """The pallas+reencode wrapper must equal the fused XLA systematic
-    output (checked here in interpret-free CPU terms via the XLA path)."""
+    """u + re-encode + info gather equals the fused XLA systematic
+    output."""
     code = pt.make_code(7, rate=0.5)
     rng = np.random.default_rng(1)
     llr = jnp.asarray(rng.integers(-128, 128, (16, code.N)).astype(np.int8))

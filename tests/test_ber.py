@@ -3,6 +3,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 import polar_tpu as pt
 
@@ -94,74 +95,73 @@ def test_campaign_steps_per_call():
     assert all(p.frames % 256 == 0 for p in res.points)
 
 
-def test_fused_step_eligibility_table():
-    """run_campaign consults the same predicate make_step's auto dispatch
-    uses — int8 (systematic OR plain), no compute override,
-    whole-code-kernel N."""
-    from polar_tpu.ber import _fused_step_eligible
-    import jax.numpy as jnp
+def test_step_uses_pinned_decoder():
+    """A decoder passed to make_step is the one the step runs: a decoder
+    that always answers the all-(+1) message counts exactly the -1 bits
+    of the drawn messages as errors."""
+    seen = []
 
-    big = pt.make_code(13, rate=0.5)  # step VMEM ceiling is level 12
-    assert _fused_step_eligible(CODE, True, jnp.int8, None)
-    assert _fused_step_eligible(pt.make_code(12, rate=0.5), True,
-                                jnp.int8, None)
-    assert _fused_step_eligible(CODE, False, jnp.int8, None)  # nonsys mode
-    assert not _fused_step_eligible(CODE, True, jnp.float32, None)
-    assert not _fused_step_eligible(CODE, True, jnp.int8, "qfloat")
-    assert not _fused_step_eligible(big, True, jnp.int8, None)
+    def all_plus(llrs):
+        seen.append(llrs.shape)
+        return jnp.ones((llrs.shape[0], CODE.K), jnp.int8)
 
-
-def test_front_step_eligibility_table():
-    """run_campaign's front_step gate consults this predicate; it must
-    cover BOTH encode modes (the nonsys block front was measured 2.8x
-    the threefry chain — VERDICT r2 weak-1 was exactly this gate pinning
-    a decoder for nonsys large-N campaigns) and any level >= 2."""
-    from polar_tpu.ber import _front_step_eligible
-    import jax.numpy as jnp
-
-    big = pt.make_code(13, rate=0.5)   # above the fused-kernel ceiling
-    assert _front_step_eligible(CODE, jnp.int8, None)
-    assert _front_step_eligible(big, jnp.int8, None)
-    # the predicate is mode-blind: there is no systematic parameter to
-    # gate on (both modes ride the block front)
-    import inspect
-    assert "systematic" not in inspect.signature(
-        _front_step_eligible).parameters
-    assert not _front_step_eligible(CODE, jnp.float32, None)
-    assert not _front_step_eligible(CODE, jnp.int8, "qfloat")
+    step = pt.make_step(CODE, systematic=True, decoder=all_plus)
+    out = jax.device_get(step(jax.random.PRNGKey(4), 20.0, 64))
+    assert seen == [(64, CODE.N)]
+    assert 0 < int(out["uncorrected_errors"]) < 64 * CODE.K
+    assert int(out["ambiguity_erasures"]) == 0
 
 
-def test_nonsys_campaign_does_not_pin_decoder_on_tpu(monkeypatch):
-    """With the front eligible and no throughput gauge requested,
-    run_campaign must leave decoder=None so make_step's auto dispatch
-    picks the kernel front — for the NON-systematic mode too (the r2
-    gate regressed exactly this). Simulated-TPU: patch the backend name
-    and capture what make_step receives."""
-    import polar_tpu.ber as ber
+def test_step_counters_equal_plain_chain():
+    """The step's five counters equal the same chain written out with the
+    public pieces (threefry bits → encode → AWGN → XLA decode)."""
+    key = jax.random.PRNGKey(11)
+    snr, batch = 0.5, 128
+    got = {k: int(v) for k, v in
+           jax.device_get(pt.make_step(CODE)(key, snr, batch)).items()}
+    kmsg, knoise = jax.random.split(key)
+    bits = jax.random.bernoulli(kmsg, 0.5, (batch, CODE.K))
+    msg = jnp.where(bits, jnp.int8(-1), jnp.int8(1))
+    cw = pt.encode_systematic(CODE, msg)
+    llr = pt.awgn_llrs(knoise, cw, snr)
+    dec = pt.make_fastssc_decoder(CODE, output="systematic",
+                                  output_dtype=jnp.int8)(llr)
+    m, d, c, l = (np.asarray(a).astype(np.int32) for a in (msg, dec, cw, llr))
+    errs = (d * m) <= 0
+    want = {
+        "uncorrected_errors": int(errs.sum()),
+        "frame_errors": int(errs.any(axis=1).sum()),
+        "ambiguity_erasures": int((d == 0).sum()),
+        "awgn_errors": int(((l * c) < 0).sum()),
+        "quantization_erasures": int((l == 0).sum()),
+    }
+    assert got == want
 
-    monkeypatch.setattr(ber.jax, "default_backend", lambda: "tpu")
-    seen = {}
 
-    def fake_make_step(code, *, decoder=None, **kw):
-        seen["decoder"] = decoder
-        raise RuntimeError("stop before tracing")
+@pytest.mark.parametrize("systematic", [True, False])
+def test_qfloat_step_equals_int8_step(systematic):
+    """compute="qfloat-f32" carries int8 semantics in float: the step's
+    counters are identical to the int8 step's on the same key."""
+    key = jax.random.PRNGKey(21)
+    a = jax.device_get(pt.make_step(CODE, systematic=systematic)(
+        key, 1.0, 128))
+    b = jax.device_get(pt.make_step(CODE, systematic=systematic,
+                                    compute="qfloat-f32")(key, 1.0, 128))
+    assert {k: int(v) for k, v in a.items()} == \
+        {k: int(v) for k, v in b.items()}
 
-    monkeypatch.setattr(ber, "make_step", fake_make_step)
+
+def test_default_decoder_cpu_is_xla_output_shape():
+    from polar_tpu.ber import default_decoder
+
     for systematic in (True, False):
-        seen.clear()
-        try:
-            ber.run_campaign(CODE, systematic=systematic, batch=128,
-                             max_frames_per_point=128,
-                             snr_range=(6.0, 6.0),
-                             measure_throughput=False)
-        except RuntimeError:
-            pass
-        assert seen["decoder"] is None, systematic
+        dec = default_decoder(CODE, systematic=systematic)
+        llr = jnp.zeros((8, CODE.N), jnp.int8)
+        assert jax.jit(dec)(llr).shape == (8, CODE.K)
 
 
 def test_campaign_without_throughput_gauge_cpu():
-    """The fused-step campaign wiring must leave the CPU path intact even
-    when no decode-only gauge decoder is requested."""
+    """Without the decode-only gauge every point reports 0 Mb/s."""
     res = pt.run_campaign(
         CODE, batch=128, max_frames_per_point=256, target_bit_errors=50,
         snr_range=(6.0, 12.0), snr_step=3.0, stop_after_clean=2,
@@ -169,26 +169,6 @@ def test_campaign_without_throughput_gauge_cpu():
     )
     assert res.points and res.points[-1].bit_errors == 0
     assert all(p.info_bits_per_sec == 0.0 for p in res.points)
-
-
-def test_make_step_fused_true_validates_dtype_and_level():
-    """fused=True must raise for any config the kernel can't cover —
-    dtype and the N<=4096 VMEM ceiling included, not just mode flags."""
-    import pytest
-
-    with pytest.raises(ValueError):
-        pt.make_step(CODE, systematic=True, dtype=jnp.float32, fused=True)
-    with pytest.raises(ValueError):
-        pt.make_step(pt.make_code(13, rate=0.5), systematic=True, fused=True)
-
-
-def test_campaign_fused_false_pins_threefry_chain():
-    res = pt.run_campaign(
-        CODE, batch=128, max_frames_per_point=256, target_bit_errors=50,
-        snr_range=(6.0, 12.0), snr_step=3.0, stop_after_clean=2,
-        measure_throughput=False, fused=False,
-    )
-    assert res.points and res.points[-1].bit_errors == 0
 
 
 def test_multi_step_overflow_guard_uses_channel_bit_domain():

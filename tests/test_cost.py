@@ -1,7 +1,9 @@
 """Cost-model tests."""
 
+import pytest
+
 import polar_tpu as pt
-from polar_tpu.utils.cost import decode_cost, kernel_vmem_bytes, max_frame_tile
+from polar_tpu.utils.cost import decode_cost
 
 
 def test_decode_cost_profile():
@@ -14,14 +16,14 @@ def test_decode_cost_profile():
     assert "f" in c.summary()
 
 
-def test_max_frame_tile_bounds():
-    # measured-working configs must fit the model's budget
-    assert max_frame_tile(1024) >= 512
-    assert max_frame_tile(4096) >= 128
-    # N=16384 whole-code kernel cannot fit: hybrid territory
-    assert max_frame_tile(16384) == 0
+@pytest.mark.parametrize("m,nodes", [(10, 127), (14, 1228)])
+def test_decode_cost_node_counts(m, nodes):
+    """The pruned-tree node counts of the two bring-up codes."""
+    assert decode_cost(pt.make_code(m, rate=0.5)).node_count == nodes
 
 
-def test_vmem_monotonic():
-    assert kernel_vmem_bytes(1024, 512) > kernel_vmem_bytes(1024, 256)
-    assert kernel_vmem_bytes(2048, 256) > kernel_vmem_bytes(1024, 256)
+def test_decode_cost_grows_with_n():
+    small = decode_cost(pt.make_code(8, rate=0.5))
+    big = decode_cost(pt.make_code(12, rate=0.5))
+    assert big.elem_ops_per_frame > 4 * small.elem_ops_per_frame
+    assert big.node_count > small.node_count

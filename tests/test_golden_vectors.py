@@ -1,8 +1,8 @@
 """Oracle-INDEPENDENT parity suite: frozen golden vectors.
 
 The vectors in ``tests/vectors/golden.npz`` were produced by the reference
-implementation (via ``scripts/freeze_vectors.py`` with ``/root/reference``
-mounted) and asserted equal to the framework at freeze time. This module
+implementation (via ``scripts/freeze_vectors.py`` with the reference
+checkout mounted) and asserted equal to the framework at freeze time. This module
 re-checks the framework against them with **no reference and no C++
 compiler required**, making the bit-exactness contract portable
 (VERDICT r1 missing-item #4). Regenerate with the script after any
@@ -107,18 +107,3 @@ def test_decode_parity_float(vectors):
         dec = jax.jit(pt.make_fastssc_decoder(code, compute="float32"))
         got = np.asarray(dec(jnp.asarray(vectors[key])))
         np.testing.assert_array_equal(got, vectors[f"fdec_{m}_{rk}"])
-
-
-def test_pallas_decode_parity_on_vectors(vectors):
-    """The Pallas megakernel (interpret mode on CPU) against the frozen
-    reference decodes — edge batches included."""
-    from polar_tpu.ops.pallas.decoder_kernel import make_pallas_decoder
-
-    for m, rk in [(6, 50), (8, 50)]:
-        code = _code(vectors, m, rk)
-        dec = jax.jit(make_pallas_decoder(code, frame_tile=128, interpret=True))
-        for i in (0, 1, 3):
-            got = np.asarray(dec(jnp.asarray(vectors[f"llr_{m}_{rk}_{i}"])))
-            np.testing.assert_array_equal(
-                got, vectors[f"dec_{m}_{rk}_{i}"],
-                err_msg=f"pallas decode m={m} batch={i}")

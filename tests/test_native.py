@@ -1,6 +1,7 @@
-"""Native C extension parity tests (skipped when not built).
+"""Native C extension parity tests.
 
-Build with ``python csrc/setup.py build_ext --inplace``.
+A module fixture compiles ``csrc/polar_native.c`` into ``build/`` (the
+checkout's ignored build directory) and loads it before the tests run.
 """
 
 import math
@@ -11,9 +12,11 @@ import pytest
 import polar_tpu as pt
 from polar_tpu.code import native
 
-pytestmark = pytest.mark.skipif(
-    not native.have_native(), reason="_polar_native not built"
-)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def built_native():
+    return native.build_native()
 
 
 @pytest.mark.parametrize("m", [1, 4, 8, 12, 16])
@@ -96,8 +99,6 @@ def test_native_large_n():
 def test_native_errors():
     with pytest.raises(ValueError):
         native.frozen_mask_fixed_k(40, 10)
-    if native.have_native():
-        import _polar_native
-
-        with pytest.raises(ValueError):
-            _polar_native.compile_program(b"\x01\x02", 4)
+    assert native.have_native()
+    with pytest.raises(ValueError):
+        native._native.compile_program(b"\x01\x02", 4)

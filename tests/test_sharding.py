@@ -1,8 +1,8 @@
 """Multi-device sharding tests on the virtual 8-device CPU mesh.
 
-The TPU analog of the reference's QEMU cross-arch testing
-(``/root/reference/Makefile:6-19``): validate the multi-chip campaign
-path without real multi-chip hardware.
+The analog of the reference's QEMU cross-arch testing (its
+``Makefile:6-19``): validate the multi-GPU campaign path without real
+multi-GPU hardware.
 """
 
 import jax

@@ -72,3 +72,48 @@ def test_measure_step_rate_cpu():
     rate = measure_step_rate(body, jax.random.PRNGKey(0), 2.0, 256,
                              iters=16, repeats=2, max_iters=64)
     assert rate > 0
+
+
+def test_op_scopes_maps_fusions_to_named_scopes():
+    """Scopes come from each instruction's op_name metadata; a trace's
+    kernel names spell the instruction's dots as underscores."""
+    from polar_tpu.utils.profiling import op_scopes
+
+    hlo = "\n".join([
+        '  %loop_slice_fusion.4 = s8[8,64]{1,0} fusion(%p), kind=kLoop, '
+        'metadata={op_name="jit(step)/encode/mul" source_file="x.py"}',
+        '  ROOT %input_reduce_fusion = s32[] fusion(%q), kind=kInput, '
+        'metadata={op_name="jit(step)/counters/reduce_sum"}',
+        '  %copy.1 = s8[8]{0} copy(%r)',
+    ])
+    got = op_scopes(hlo, ("channel", "encode", "decode", "counters"))
+    assert got["loop_slice_fusion.4"] == "encode"
+    assert got["loop_slice_fusion_4"] == "encode"
+    assert got["input_reduce_fusion"] == "counters"
+    assert "copy.1" not in got
+
+
+def test_busy_and_scopes_union_and_idle():
+    from polar_tpu.utils.profiling import busy_and_scopes
+
+    events = [("a", None, 0, 10), ("b", "x.1", 5, 10), ("c", None, 30, 10)]
+    res = busy_and_scopes(events, {"a": "encode", "x.1": "decode"})
+    assert res["window_ns"] == 40 and res["busy_ns"] == 25
+    assert abs(res["idle_share"] - 15 / 40) < 1e-12
+    assert res["by_scope_ns"] == {"encode": 10, "decode": 10, "other": 10}
+    with pytest.raises(ValueError):
+        busy_and_scopes([], {})
+
+
+def test_step_scopes_reach_compiled_text():
+    """The step's named scopes survive into the compiled module's
+    metadata, so a trace can be split into layers."""
+    from polar_tpu.ber import make_step_body
+    from polar_tpu.utils.profiling import op_scopes
+
+    code = pt.make_code(5, rate=0.5)
+    step = jax.jit(make_step_body(code), static_argnums=(2,))
+    hlo = step.lower(jax.random.PRNGKey(0), 1.0, 64).compile().as_text()
+    found = set(op_scopes(hlo, ("channel", "encode", "decode",
+                                "counters")).values())
+    assert {"encode", "decode", "counters"} <= found
